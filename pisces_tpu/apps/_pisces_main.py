@@ -42,7 +42,7 @@ def _normalize(argv: List[str]) -> List[str]:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="pisces-tpu", description="TPU-native somatic variant caller")
+        prog="pisces-tpu", description="JAX somatic variant caller")
     a = p.add_argument
     # ---- BamProcessorParsingUtils ----
     a("-b", "-bam", "-bampaths", dest="bam", required=True,
@@ -130,12 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
     a("-reportrccounts", default="false")
     a("-reporttscounts", default="false")
     a("-reportsuspiciouscoveragefraction", default="false")
-    # ---- TPU-build extensions ----
+    # ---- extensions of this rebuild ----
     a("-backend", default="jax", choices=["jax", "numpy"],
-      help="per-locus scoring backend (default jax: the fused kernel runs "
-           "on the accelerator; integer outputs are exact vs the f64 host "
-           "path, and floats emitted in the VCF stay on the host f64 path "
-           "for byte parity). numpy forces everything onto the host.")
+      help="per-locus scoring backend (default jax: large batches run the "
+           "fused float64 kernels on JAX's default device, the GPU when "
+           "there is one; outputs are byte-identical to the f64 host path). "
+           "numpy forces everything onto the host.")
     a("-resume", default="false",
       help="with -MultiProcess: skip completed chromosome shards")
     a("-windowsize", type=int, default=0,
@@ -153,7 +153,7 @@ def build_parser() -> argparse.ArgumentParser:
       help="capture a JAX profiler trace (TensorBoard format) of the run "
            "into this directory")
     a("-metricsjson", default=None,
-      help="write stage timings / counters / device memory watermark as "
+      help="write stage timings / counters / device peak memory as "
            "JSON to this path at exit")
     return p
 

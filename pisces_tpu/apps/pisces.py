@@ -671,6 +671,9 @@ def main(argv=None) -> int:
     options = options_from_args(args, raw)
     bam_paths = options.bam_paths
     use_device = args.backend == "jax"
+    if use_device:
+        from pisces_tpu.utils.device import configure_compile_cache
+        configure_compile_cache()
 
     def execute() -> int:
         from pisces_tpu.utils.metrics import metrics, profiler_trace

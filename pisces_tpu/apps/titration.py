@@ -64,9 +64,8 @@ class TitrationPoint:
 
 def wilson_ci(k: int, n: int, z: float = 1.959964) -> Tuple[float, float]:
     """95% Wilson score interval for a binomial proportion k/n — the
-    uncertainty the committed low-VF claims carry (VERDICT r04 weak #5:
-    R=0.67 on n=15 has a ~±0.24 CI; the regime claim must be outside CI
-    noise)."""
+    uncertainty the committed low-VF claims carry (R=0.67 on n=15 has a
+    ~±0.24 CI; the regime claim must be outside CI noise)."""
     if n == 0:
         return 0.0, 1.0
     p = k / n

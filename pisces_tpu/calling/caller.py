@@ -36,6 +36,7 @@ from pisces_tpu.ops import stats
 from pisces_tpu.ops.coverage import compute_coverage
 from pisces_tpu.pileup.candidates import Candidate
 from pisces_tpu.pileup.counts import PileupCounts
+from pisces_tpu.utils.metrics import metrics
 
 
 @dataclass
@@ -74,10 +75,11 @@ class CallerConfig:
     coverage_method: "CoverageMethod" = None  # CoverageMethod.EXACT enables read-spanning coverage
     # device routing for the batched candidate-scoring pass: batches at or
     # above the threshold run on the fused XLA kernel (ops/jax_scoring
-    # .score_snv_loci); smaller batches stay on the vectorized f64 host path
-    # (dispatch latency beats kernel time for small N). Callers override
-    # from the -backend flag (jax by default); integer q outputs are exact
-    # either way.
+    # .score_snv_loci); smaller batches stay on the vectorized f64 host
+    # path. The 4096 default predates the GPU and is not measured on it:
+    # the crossover where a launch plus a host sync beats the host math is
+    # still open. Callers override from the -backend flag (jax by
+    # default); integer q outputs are exact either way.
     use_device_candidates: bool = True
     device_batch_threshold: int = 4096
     # >1: candidate batches shard over the (dp, sp) device mesh
@@ -418,6 +420,7 @@ class AlleleCaller:
             out = sharded_score_snv_tuples(
                 sup_by_dir, cov_by_dir, ref_support, num_no_calls, cov,
                 params, get_mesh(cfg.mesh_devices))
+            metrics.count("device_rows_snv_loci", n)
             return out["variant_qscore"][:n].astype(np.int64)
         pad = max(128, 1 << (n - 1).bit_length())
         sup_p = np.zeros((pad, 3), np.int32)
@@ -433,7 +436,9 @@ class AlleleCaller:
         out = score_snv_loci(jax.device_put(sup_p), jax.device_put(cov_p),
                              jax.device_put(ref_p), jax.device_put(nc_p),
                              jax.device_put(tot_p), params)
-        return np.asarray(out["variant_qscore"])[:n].astype(np.int64)
+        q = np.asarray(out["variant_qscore"])[:n].astype(np.int64)
+        metrics.count("device_rows_snv_loci", n)
+        return q
 
     def _apply_filters(self, a: CalledAllele) -> None:
         """AlleleProcessor.Process/ApplyFilters (AlleleProcessor.cs:16-71)."""

@@ -24,6 +24,7 @@ from pisces_tpu.domain.types import AlleleType, Genotype
 from pisces_tpu.options import PiscesApplicationOptions
 from pisces_tpu.pileup.counts import PileupCounts
 from pisces_tpu.io.vcf_write import VcfWriterConfig, dotnet_format
+from pisces_tpu.utils.metrics import metrics
 
 _GT_STR = {
     int(Genotype.HOMOZYGOUS_REF): "0/0",
@@ -31,8 +32,8 @@ _GT_STR = {
     int(Genotype.REF_AND_NOCALL): "0/.",
 }
 
-# minimum unique-tuple batch for device dispatch (see caller.py
-# device_batch_threshold: small batches are launch-latency-bound)
+# minimum unique-tuple batch for device dispatch (the same default as
+# caller.py device_batch_threshold; not measured on the GPU)
 DEVICE_TUPLE_THRESHOLD = 4096
 
 
@@ -144,10 +145,8 @@ def _finish_scoring(positions, uniq, inv, pad_flag, refseq, params,
         # fused device kernel implements somatic GT/GQ only)
         out = _score_host_tuples_diploid(uniq[:, :3], uniq[:, 3:6], params,
                                          diploid_snv_params)
-    # device dispatch pays off only above a batch-size threshold (same
-    # rationale as CallerConfig.device_batch_threshold): below it, kernel
-    # launch + host sync dominate — worst over remote-attached devices —
-    # and the f64 host path is the byte-parity oracle anyway
+    # below the threshold the f64 host path scores: it is the byte-parity
+    # oracle, and a small batch saves little next to a launch and a sync
     elif use_device and len(uniq) >= DEVICE_TUPLE_THRESHOLD:
         import jax
         from pisces_tpu.ops.jax_scoring import score_reference_tuples
@@ -163,6 +162,7 @@ def _finish_scoring(positions, uniq, inv, pad_flag, refseq, params,
         keep_keys = ("total_coverage", "support", "variant_qscore",
                      "frequency", "genotype", "gq", "sb_gatk")
         out = {k: np.asarray(out_u[k])[:u] for k in keep_keys}
+        metrics.count("device_rows_reference_tuples", u)
     else:
         out = _score_host_tuples(uniq[:, :3], uniq[:, 3:6], params)
     if pad_flag is not None:

@@ -1,4 +1,4 @@
-"""Core enums and constants for the TPU-native Pisces rebuild.
+"""Core enums and constants for the JAX Pisces rebuild.
 
 Semantics mirror the reference implementation's domain model
 (src/lib/Pisces.Domain/Types/*.cs, src/lib/Pisces.Domain/Constants.cs) but are

@@ -1,11 +1,15 @@
 """ctypes binding for the C++ native I/O module (libpisces_io.so).
 
-Falls back silently to the pure-Python reader when the library has not been
-built; `build()` compiles it with make.
+The library is built from the sources beside it on first use, and built
+again whenever a hash of those sources and the Makefile differs from the
+hash stamped beside the library. If it cannot be built, a warning is
+logged and callers fall back to the pure-Python reader.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
+import hashlib
 import os
 import subprocess
 from typing import Optional
@@ -14,25 +18,70 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libpisces_io.so")
+_STAMP_PATH = _LIB_PATH + ".srchash"
 _lib: Optional[ctypes.CDLL] = None
 
 
-def build(force: bool = False) -> bool:
-    if os.path.exists(_LIB_PATH) and not force:
-        return True
+def source_hash() -> str:
+    """sha256 over the native .cpp sources and the Makefile."""
+    h = hashlib.sha256()
+    paths = sorted(glob.glob(os.path.join(_NATIVE_DIR, "*.cpp")))
+    for path in paths + [os.path.join(_NATIVE_DIR, "Makefile")]:
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return h.hexdigest()
+
+
+def _is_current(want: str) -> bool:
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True)
-        return os.path.exists(_LIB_PATH)
-    except (subprocess.CalledProcessError, FileNotFoundError):
+        with open(_STAMP_PATH) as f:
+            stamped = f.read().strip()
+    except OSError:
         return False
+    return stamped == want and os.path.exists(_LIB_PATH)
+
+
+def build(force: bool = False) -> bool:
+    """Make libpisces_io.so unless it was built from the current sources.
+    Concurrent callers (test workers, worker processes) serialize on a lock
+    file, so one builds and the rest load its result."""
+    import fcntl
+
+    from pisces_tpu.utils.logger import log
+    want = source_hash()
+    if not force and _is_current(want):
+        return True
+    with open(os.path.join(_NATIVE_DIR, ".build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not force and _is_current(want):
+            return True
+        try:
+            # -B: the stamp, not file times, decides that a build is due
+            subprocess.run(["make", "-B", "-C", _NATIVE_DIR,
+                            "libpisces_io.so"], check=True,
+                           capture_output=True)
+        except (subprocess.CalledProcessError, FileNotFoundError) as e:
+            err = getattr(e, "stderr", b"") or b""
+            log(f"native library build failed ({e}: "
+                f"{err.decode(errors='replace')[-500:]}); falling back to "
+                f"the Python reader", "WARNING")
+            return False
+        with open(_STAMP_PATH + ".tmp", "w") as f:
+            f.write(want + "\n")
+        os.replace(_STAMP_PATH + ".tmp", _STAMP_PATH)
+    return os.path.exists(_LIB_PATH)
+
+
+def library_info() -> dict:
+    """Path of the loaded library and the source hash it was built from."""
+    return {"path": _LIB_PATH, "source_hash": source_hash()}
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
     global _lib
     if _lib is not None:
         return _lib
-    if not os.path.exists(_LIB_PATH) and not build():
+    if not build():
         return None
     lib = ctypes.CDLL(_LIB_PATH)
     lib.bam_open.restype = ctypes.c_void_p

@@ -165,15 +165,15 @@ class PiscesApplicationOptions:
     debug_mode: bool = False
     priors_path: Optional[str] = None       # vcf of known variants to force
     trim_mnv_priors: bool = False
-    # TPU-build extension: process chromosomes in fixed-size windows via the
+    # extension of this rebuild: process chromosomes in fixed-size windows via the
     # .bai index so WGS-scale inputs stream with bounded memory (0 = off)
     window_size: int = 0
     window_margin: int = 2000
-    # TPU-build extension: shard the dense per-locus scoring over an
+    # extension of this rebuild: shard the dense per-locus scoring over an
     # N-device (dp, sp) mesh with read-routing + ppermute halo exchange
     # (parallel/sharding.py); 0/1 = single-device
     mesh_devices: int = 0
-    # TPU-build extension: columnar gVCF reference-line path (calling/
+    # extension of this rebuild: columnar gVCF reference-line path (calling/
     # fast_gvcf.py); False forces the per-candidate object path (the
     # byte-parity oracle the fast path is tested against)
     use_fast_gvcf: bool = True
@@ -185,7 +185,7 @@ class PiscesApplicationOptions:
 
     command_line: str = ""
 
-    # TPU-build extensions
+    # extensions of this rebuild
     scoring_backend: str = "jax"  # "jax" (device, batched) or "numpy" (host, f64 parity)
 
     def validate(self) -> None:

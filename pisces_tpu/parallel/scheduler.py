@@ -308,9 +308,10 @@ def process_chromosomes_multiprocess(options, bam_path: str, genome_dir: str,
     Shards are written atomically (tmp + rename), so a shard file on disk is
     a completed unit of work. With resume=True a killed run restarts at
     shard granularity: completed chromosomes are not re-called (the
-    checkpoint/resume design SURVEY.md flags as the TPU-build upgrade of the
-    reference's crash-retains-completed-chr-files behavior,
-    GenomeProcessor.cs:156-186)."""
+    checkpoint/resume design SURVEY.md flags as this rebuild's upgrade of
+    the reference's crash-retains-completed-chr-files behavior,
+    GenomeProcessor.cs:156-186). With use_device, each worker reserves
+    1/n_workers of the device memory one process would take."""
     import json
     import multiprocessing as mp
 
@@ -347,7 +348,19 @@ def process_chromosomes_multiprocess(options, bam_path: str, genome_dir: str,
     write_manifest()
     if args:
         ctx = mp.get_context("spawn")
-        with ctx.Pool(min(n_processes, len(args))) as pool:
+        n_workers = min(n_processes, len(args))
+        # each worker process is its own JAX client of the one device:
+        # without a share, the first reserves most of its memory and the
+        # second fails to allocate
+        init, init_args = None, ()
+        if use_device:
+            from pisces_tpu.utils.device import (
+                init_device_worker, worker_mem_fraction,
+            )
+            init, init_args = (init_device_worker,
+                               (worker_mem_fraction(n_workers),))
+        with ctx.Pool(n_workers, initializer=init,
+                      initargs=init_args) as pool:
             for chrom, _path in pool.imap_unordered(_run_chromosome_shard,
                                                     args):
                 done.add(chrom)

@@ -250,7 +250,10 @@ def sharded_score_snv_tuples(sup_by_dir, cov_by_dir, ref_support,
     args = [jax.device_put(x, sharding) for x in
             (_pad(sup_by_dir, 3), _pad(cov_by_dir, 3), _pad(ref_support),
              _pad(num_no_calls), _pad(total_coverage))]
-    out = _build_snv_step(mesh, params)(*args)
+    # the kernel computes in float64 (ops/jax_scoring), so the whole
+    # shard_map step is traced with it enabled
+    with jax.enable_x64(True):
+        out = _build_snv_step(mesh, params)(*args)
     return {k: np.asarray(v)[:n] for k, v in out.items()}
 
 
@@ -283,8 +286,9 @@ def sharded_score_reference_positions(ev: BaseEvents, refseq: np.ndarray,
     pos_sharding = NamedSharding(mesh, P(("dp", "sp")))
     partial_d = jax.device_put(partial, pos_sharding)
     ref_d = jax.device_put(ref_codes, pos_sharding)
-    (touched, total_cov, support, sup_by_dir, cov_by_dir, q, gt, gq,
-     sb_gatk, called, covered) = step(partial_d, ref_d)
+    with jax.enable_x64(True):
+        (touched, total_cov, support, sup_by_dir, cov_by_dir, q, gt, gq,
+         sb_gatk, called, covered) = step(partial_d, ref_d)
 
     touched = np.asarray(touched)
     stats = {"loci_called": int(called), "loci_covered": int(covered)}

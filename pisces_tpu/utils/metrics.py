@@ -1,18 +1,18 @@
 """Structured tracing / step metrics.
 
 The reference's observability is minimal (SURVEY §5: Benchmark wall-clock,
-peak memory at exit, per-(bam,chr) elapsed seconds). The TPU build adds the
+peak memory at exit, per-(bam,chr) elapsed seconds). This rebuild adds the
 subsystem SURVEY §5 calls for: named stage timers with hierarchical scopes,
-step metrics (loci/sec/chip, reads/sec), device memory watermarks, and an
-optional JAX profiler trace capture — all behind a process-global registry
-so hot paths pay one perf_counter call per scope.
+step counters (reads, loci scored, rows scored on the device), the device's
+peak memory, and an optional JAX profiler trace capture — all behind a
+process-global registry so hot paths pay one perf_counter call per scope.
 
 Usage:
     from pisces_tpu.utils.metrics import metrics
     with metrics.stage("pileup"):
         ...
     metrics.count("reads", n)
-    metrics.device_watermark()          # record current HBM stats
+    metrics.device_watermark()          # record the device's peak memory
     metrics.report()                    # log a summary table
 """
 from __future__ import annotations
@@ -41,7 +41,8 @@ class Metrics:
     def __init__(self):
         self._stages: Dict[str, _Stage] = {}
         self._counters: Dict[str, float] = {}
-        self._hbm_peak_bytes = 0
+        self._device_peak_bytes = 0
+        self._device: Dict[str, object] = {}
         self._lock = threading.Lock()
         self._t0 = time.perf_counter()
 
@@ -76,20 +77,21 @@ class Metrics:
 
     # -- device memory -----------------------------------------------------
     def device_watermark(self) -> Optional[int]:
-        """Record the current device memory-in-use as a watermark; returns
-        bytes in use or None when the backend exposes no stats."""
-        try:
-            import jax
-            dev = jax.local_devices()[0]
-            stats = dev.memory_stats()
+        """Record the default device's platform, kind and peak memory in
+        use (`peak_bytes_in_use`); returns the peak, or None when the
+        backend keeps no memory statistics (the CPU)."""
+        import jax
+        dev = jax.devices()[0]
+        stats = dev.memory_stats()
+        with self._lock:
+            self._device = {"platform": dev.platform,
+                            "device_kind": dev.device_kind,
+                            "count": jax.device_count()}
             if not stats:
                 return None
-            used = int(stats.get("bytes_in_use", 0))
-            with self._lock:
-                self._hbm_peak_bytes = max(self._hbm_peak_bytes, used)
-            return used
-        except Exception:
-            return None
+            peak = int(stats["peak_bytes_in_use"])
+            self._device_peak_bytes = max(self._device_peak_bytes, peak)
+            return peak
 
     # -- reporting ---------------------------------------------------------
     def snapshot(self) -> dict:
@@ -99,7 +101,8 @@ class Metrics:
                                "calls": v.calls}
                            for k, v in sorted(self._stages.items())},
                 "counters": dict(sorted(self._counters.items())),
-                "hbm_peak_bytes": self._hbm_peak_bytes,
+                "device": dict(self._device),
+                "device_peak_bytes": self._device_peak_bytes,
                 "wall_seconds": round(time.perf_counter() - self._t0, 3),
             }
 
@@ -109,9 +112,9 @@ class Metrics:
             emit(f"stage {name}: {s['seconds']:.2f}s over {s['calls']} calls")
         for name, n in snap["counters"].items():
             emit(f"counter {name}: {n:,.0f}")
-        if snap["hbm_peak_bytes"]:
-            emit(f"device memory watermark: "
-                 f"{snap['hbm_peak_bytes'] / (1 << 20):.1f} MiB")
+        if snap["device_peak_bytes"]:
+            emit(f"device peak memory: "
+                 f"{snap['device_peak_bytes'] / (1 << 20):.1f} MiB")
         return snap
 
     def write_json(self, path: str) -> None:
@@ -123,7 +126,8 @@ class Metrics:
         with self._lock:
             self._stages.clear()
             self._counters.clear()
-            self._hbm_peak_bytes = 0
+            self._device_peak_bytes = 0
+            self._device = {}
             self._t0 = time.perf_counter()
 
 

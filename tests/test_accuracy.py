@@ -109,7 +109,7 @@ def test_wilson_ci():
 def test_committed_lowvf_csv_is_statistical():
     """The committed low-VF regime claim (docs/titration_lowvf.csv) must
     rest on n>=100 sites per VF point, and the 2%-VF recall>=0.9 claim
-    must hold at the CI lower bound (VERDICT r04 weak #5)."""
+    must hold at the CI lower bound."""
     path = os.path.join(os.path.dirname(__file__), "..", "docs",
                         "titration_lowvf.csv")
     rows = list(csv.DictReader(open(path)))

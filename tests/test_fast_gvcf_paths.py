@@ -1,6 +1,6 @@
 """Columnar fast-gVCF path vs the per-candidate object path: byte parity
 with intervals, forced alleles, and windowed streaming (the cases the fast
-path previously bailed on — VERDICT round 1 weak item 3).
+path previously bailed on).
 
 The object path (use_fast_gvcf=False) materializes a Candidate per covered
 position + RegionMapper padding (RegionState.GetAllCandidates:383-460,

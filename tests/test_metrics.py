@@ -1,5 +1,5 @@
-"""Tracing/metrics subsystem (SURVEY §5: the TPU build's structured
-observability: stage timers, step counters, device memory watermarks)."""
+"""Tracing/metrics subsystem (SURVEY §5: this rebuild's structured
+observability: stage timers, step counters, device peak memory)."""
 import json
 import os
 

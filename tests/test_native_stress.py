@@ -2,8 +2,8 @@
 
 Round-2 regression: pisces_io.cpp held the pileup result in a process
 global (`g_pileup`), so two scheduler threads calling bam_pileup
-concurrently raced delete/new (use-after-free, SIGSEGV rc=139 in
-BENCH_r02). The result now lives on the BamFile handle; these tests pin
+concurrently raced delete/new (use-after-free, SIGSEGV rc=139 in the
+benchmark). The result now lives on the BamFile handle; these tests pin
 that a >=8-thread native-path run over a >=100k-read workload completes
 and is byte-identical to the serial run (reference discipline: one job
 owns one region block, RegionStateManager.cs:336-439).
